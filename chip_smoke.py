@@ -9,24 +9,33 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. device  - the card's name and power limit (nvidia-smi); TF32 off,
              cuDNN deterministic.
-2. build   - nvcc builds every kernel of the deployed hop from
-             src/repro_torch/csrc, one compiler per source, in parallel.
+2. build   - nvcc builds every kernel from src/repro_torch/csrc, one
+             compiler per source, in parallel.
 3. parity  - each kernel against its plain PyTorch version on the same
-             CUDA tensors, at the main path's shapes (capacity 8) and edge
-             cases (all-zero frame, zero weight strips, odd L and M,
-             non-zero carried state).
+             CUDA tensors, at the paths' shapes (capacity 8) and edge cases
+             (all-zero frame, zero weight strips, odd L and M, non-zero
+             carried state, L = 1; for FP10 2**20 values weighted toward
+             tiny magnitudes, the subnormal grid and its ties, +-0, +-inf,
+             NaN and values past saturation, equal value for value).
 4. main    - SessionPool(init_tft(seed 0), tftnn_config(), capacity=8) on
-             cuda, fp32 and FP10: 8 sessions, 1 s of 8 kHz audio each in
-             uneven chunks, against the same pool on the CPU; launch
-             counters exactly 8 / 2 / 4 per pool step; one session's audio
-             bit-identical alone and among churning neighbours.
+             cuda, on both hops (backend "pallas": the deploy graph;
+             backend "xla": the training graph), fp32 and FP10: 8 sessions,
+             1 s of 8 kHz audio each in uneven chunks, against the same pool
+             on the CPU; launch counters exactly per pool step (pallas:
+             dilated conv 8, attention step 2, masked MAC 4; xla: non-causal
+             attention 2; FP10 2 under FP10 on both); one session's audio
+             bit-identical alone and among churning neighbours on both;
+             enhance_streaming == enhance_offline on the card (8 x 1 s) and
+             each against the CPU port.
 5. times   - CUDA-event medians of each kernel's launches per hop step,
              beside its plain version, one library call where one exists
-             and the card's bound; the pool's per-hop p50/p99 at capacity
-             8 and 64 against the 16 ms hop budget; a profiler window.
+             and the card's bound; each pool's per-hop p50/p99 at capacity
+             8 and 64 against the 16 ms hop budget; enhance_offline and
+             enhance_streaming seconds per second of audio; a profiler
+             window on each pool.
 
 Prints one {"kernels": [...]} line, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Details go to results/chip_smoke.json.
+line {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -42,24 +51,40 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-OUT_DIR = ROOT / "results"
+OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 HOP_BUDGET_MS = 16.0
-TOL = {"dilated_split_conv": 2e-5, "linear_attention_step": 1e-5, "masked_matmul": 1e-5}
+TOL = {"dilated_split_conv": 2e-5, "linear_attention_step": 1e-5, "masked_matmul": 1e-5,
+       "fp10_quantize": 0.0, "linear_attention": 1e-5}
 REPLACES = {
     "dilated_split_conv": "src/repro/kernels/dilated_conv/kernel.py:60",
     "linear_attention_step": "src/repro/kernels/linear_attention/kernel.py:138",
     "masked_matmul": "src/repro/kernels/masked_mac/kernel.py:47",
+    "fp10_quantize": "src/repro/kernels/fp10/kernel.py:39",
+    "linear_attention": "src/repro/kernels/linear_attention/kernel.py:179",
 }
 SOURCE = {
     "dilated_split_conv": "src/repro_torch/csrc/dilated_conv.cu",
     "linear_attention_step": "src/repro_torch/csrc/linear_attention.cu",
     "masked_matmul": "src/repro_torch/csrc/masked_mac.cu",
+    "fp10_quantize": "src/repro_torch/csrc/fp10_quantize.cu",
+    "linear_attention": "src/repro_torch/csrc/linear_attention.cu",
 }
-PER_STEP = {"dilated_split_conv": 8, "linear_attention_step": 2, "masked_matmul": 4}
+# the path each kernel serves, whose run gives its "launches" in the kernels line
+PATH_OF = {"dilated_split_conv": "pallas_fp32", "linear_attention_step": "pallas_fp32",
+           "masked_matmul": "pallas_fp32", "fp10_quantize": "xla_fp10", "linear_attention": "xla_fp10"}
+FP10_MAX = (2.0 - 2.0**-4) * 2.0**15  # 63488, the largest s1/e5/m4 value
+
+
+def per_step(backend: str, fp10: bool) -> dict:
+    """Launches of each kernel in one pool step of the given hop."""
+    deploy = backend == "pallas"
+    return {"dilated_split_conv": 8 * deploy, "linear_attention_step": 2 * deploy,
+            "masked_matmul": 4 * deploy, "fp10_quantize": 2 * fp10,
+            "linear_attention": 2 * (not deploy)}
 
 
 def fail(msg: str) -> None:
@@ -122,16 +147,36 @@ def run(report: dict) -> int:
     from repro_torch.core.quant import FP10, quantize
     from repro_torch.kernels import _build
     from repro_torch.kernels.dilated_conv import dilated_split_conv, dilated_split_conv_ref
-    from repro_torch.kernels.linear_attention import linear_attention_step, linear_attention_step_ref
+    from repro_torch.kernels.fp10 import fp10_quantize, fp10_quantize_ref
+    from repro_torch.kernels.linear_attention import (
+        linear_attention,
+        linear_attention_ref,
+        linear_attention_step,
+        linear_attention_step_ref,
+    )
     from repro_torch.kernels.masked_mac import masked_matmul, masked_matmul_ref
     from repro_torch.models import tftnn as tft
     from repro_torch.serve import SessionPool, StreamState, build_deploy_plan, init_stream
     from repro_torch.serve.deploy import fused_stream_step
-    from repro_torch.serve.streaming_se import hop_analysis, hop_synthesis
+    from repro_torch.serve.streaming_se import (
+        enhance_offline,
+        enhance_streaming,
+        hop_analysis,
+        hop_synthesis,
+    )
 
     kernels = {"dilated_split_conv": dilated_split_conv,
                "linear_attention_step": linear_attention_step,
-               "masked_matmul": masked_matmul}
+               "masked_matmul": masked_matmul,
+               "fp10_quantize": fp10_quantize,
+               "linear_attention": linear_attention}
+
+    def reset_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
 
     # -- 1. device ----------------------------------------------------------
     smi = smi_line()
@@ -203,9 +248,42 @@ def run(report: dict) -> int:
     w[8:16] = 0.0  # a zero strip, skipped
     x, b = rand(1001, 20), rand(12)
     check("masked_matmul", "M=1001 K=20 zero strip", masked_matmul(x, w, b), masked_matmul_ref(x, w, b))
+
+    # FP10: equal to the plain version value for value, NaN where NaN
+    prng = np.random.default_rng(2)
+    subgrid = np.arange(0, 64) * 2.0**-18  # the subnormal grid and the binades above it
+    probes = np.concatenate([
+        prng.standard_normal(2**20) * 10.0 ** prng.integers(-9, 6, 2**20),
+        subgrid, subgrid + 2.0**-19, -(subgrid + 2.0**-19), np.ldexp(1.0, np.arange(-26, 17)),
+        [0.0, -0.0, 2.0**-19, -(2.0**-19), np.inf, -np.inf, np.nan, FP10_MAX, 64000.0,
+         65520.0, 1e6, -1e6, 3e38],
+    ]).astype(np.float32)
+    fp10_cases = [("probes", torch.from_numpy(probes).to(dev)),
+                  ("frame (8, 257, 2)", rand(B, Fr + 1, 2, scale=40.0)),
+                  ("mask (8, 257, 2)", rand(B, Fr + 1, 2))]
+    for case, x in fp10_cases:
+        got, want = fp10_quantize(x), fp10_quantize_ref(x)
+        nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+        same = bool(torch.equal(nan_g, nan_w)) and bool(torch.equal(got[~nan_g], want[~nan_w]))
+        err = float((got[~nan_g] - want[~nan_w]).abs().max()) if same else float("inf")
+        cases.append({"kernel": "fp10_quantize", "case": case, "max_abs_err": err, "ok": same,
+                      "values": x.numel(), "nan": int(nan_g.sum())})
+        if not same:
+            fail(f"fp10_quantize [{case}] differs from its plain version")
+    special = torch.tensor([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e6, 2.0**-19], device=dev)
+    got = fp10_quantize(special).cpu().numpy()
+    if not (np.isnan(got[0]) and list(got[1:]) == [FP10_MAX, -FP10_MAX, 0.0, 0.0, FP10_MAX, 0.0]):
+        fail(f"fp10_quantize special values: {got.tolist()}")
+
+    for case, shape in (("hop (8, 2, 128, 8)", (B, H, Fp, hd)),
+                        ("offline (8*62, 2, 128, 8)", (B * 62, H, Fp, hd)),
+                        ("odd L=37", (3, H, 37, hd)), ("L=1", (3, H, 1, hd))):
+        q, k, v = (rand(*shape) for _ in range(3))
+        check("linear_attention", case, linear_attention(q, k, v), linear_attention_ref(q, k, v))
     torch.cuda.synchronize()
     print(f"[parity] {len(cases)} cases ok; max abs err "
-          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}", flush=True)
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}; "
+          f"FP10 equal on {probes.size} probe values (NaN stays NaN)", flush=True)
     report["parity"] = cases
 
     # -- 4. main path ---------------------------------------------------------
@@ -217,13 +295,11 @@ def run(report: dict) -> int:
     chunk_rng = np.random.default_rng(1)
     chunks = [np.split(a, np.sort(chunk_rng.choice(np.arange(1, sr), 24, replace=False))) for a in audio]
 
-    def serve(device, quant, count_launches=False):
-        pool = SessionPool(params, cfg, capacity=8, quant=quant, device=device)
+    def serve(device, quant, backend):
+        pool = SessionPool(params, cfg, capacity=8, quant=quant, backend=backend, device=device)
         sessions = [pool.attach() for _ in range(8)]
         outs = [[] for _ in range(8)]
-        if count_launches:
-            for k in kernels.values():
-                k.launches = 0
+        reset_counts()  # weight rounding at construction is not a pool step
         for r in range(25):
             for i, s in enumerate(sessions):
                 if r < len(chunks[i]):
@@ -233,33 +309,38 @@ def run(report: dict) -> int:
                 outs[i].append(pool.read(s))
         for i, s in enumerate(sessions):
             outs[i].append(pool.detach(s))
-        launches = {n: k.launches for n, k in kernels.items()}
-        return np.stack([np.concatenate(o) for o in outs]), len(pool.step_seconds), launches
+        return np.stack([np.concatenate(o) for o in outs]), len(pool.step_seconds), counts()
 
-    main_launches = None
-    report["main"] = {}
-    for qname, quant in (("fp32", None), ("fp10", FP10)):
-        card, steps, launches = serve(dev, quant, count_launches=True)
-        if main_launches is None:
-            main_launches = launches
-        for name, n in launches.items():
-            if n != PER_STEP[name] * steps or n == 0:
-                fail(f"main path ({qname}): {name} launched {n} times in {steps} steps, "
-                     f"expected {PER_STEP[name]} per step")
-        if card.shape != (8, (sr // cfg.hop) * cfg.hop) or not np.isfinite(card).all():
-            fail(f"main path ({qname}): output shape {card.shape} or non-finite values")
-        cpu, _, _ = serve("cpu", quant)
+    def held_to_cpu(card, cpu):
         gap = np.abs(card - cpu)
         close = gap <= 1e-4 + 1e-4 * np.abs(cpu)
-        need = 1.0 if quant is None else 0.999
-        res = {"steps": steps, "launches": launches, "within_1e-4": float(close.mean()),
-               "worst_gap": float(gap.max()), "rule": "all" if quant is None else ">= 99.9 %"}
-        far = (~close).reshape(8, -1, cfg.hop).sum(axis=(0, 2))  # samples off, by hop index
-        res["off_by_hop"] = {int(h): int(far[h]) for h in np.flatnonzero(far)}
-        report["main"][qname] = res
-        print(f"[main {qname}] {json.dumps(res)}", flush=True)
-        if close.mean() < need:
-            fail(f"main path ({qname}): card vs CPU port within 1e-4 on only {close.mean():.5f} of samples")
+        far = (~close).reshape(card.shape[0], -1, cfg.hop).sum(axis=(0, 2))  # samples off, by hop
+        return close, {"within_1e-4": float(close.mean()), "worst_gap": float(gap.max()),
+                       "off_by_hop": {int(h): int(far[h]) for h in np.flatnonzero(far)}}
+
+    main_launches = {}
+    report["main"] = {}
+    for backend in ("pallas", "xla"):
+        for qname, quant in (("fp32", None), ("fp10", FP10)):
+            path = f"{backend}_{qname}"
+            card, steps, launches = serve(dev, quant, backend)
+            main_launches[path] = launches
+            want = per_step(backend, quant is not None)
+            for name, n in launches.items():
+                if n != want[name] * steps or (want[name] and n == 0):
+                    fail(f"main path ({path}): {name} launched {n} times in {steps} steps, "
+                         f"expected {want[name]} per step")
+            if card.shape != (8, (sr // cfg.hop) * cfg.hop) or not np.isfinite(card).all():
+                fail(f"main path ({path}): output shape {card.shape} or non-finite values")
+            close, res = held_to_cpu(card, serve("cpu", quant, backend)[0])
+            need = 1.0 if quant is None else 0.999
+            res = {"steps": steps, "launches": launches, **res,
+                   "rule": "all" if quant is None else ">= 99.9 %"}
+            report["main"][path] = res
+            print(f"[main {path}] {json.dumps(res)}", flush=True)
+            if close.mean() < need:
+                fail(f"main path ({path}): card vs CPU port within 1e-4 on only "
+                     f"{close.mean():.5f} of samples")
 
     # report only: FP10 values that round to different grid points on the card
     # and on the CPU, hop by hop from the same (CPU) state
@@ -285,8 +366,8 @@ def run(report: dict) -> int:
     print(f"[main fp10] grid flips card vs CPU over {sr // cfg.hop} hops x 8 sessions: "
           f"{json.dumps(flips)}", flush=True)
 
-    def churn(neighbours: bool) -> np.ndarray:
-        pool = SessionPool(params, cfg, capacity=8, device=dev)
+    def churn(neighbours: bool, backend: str) -> np.ndarray:
+        pool = SessionPool(params, cfg, capacity=8, backend=backend, device=dev)
         others = [pool.attach() for _ in range(6)] if neighbours else []
         me = pool.attach()
         out = []
@@ -302,10 +383,39 @@ def run(report: dict) -> int:
             out.append(pool.read(me))
         return np.concatenate(out)
 
-    alone, crowded = churn(False), churn(True)
-    if alone.size != 20 * cfg.hop or not np.array_equal(alone, crowded):
-        fail("churn: a session's audio differs alone vs among churning neighbours")
-    print("[main] churn bit-identity ok (20 hops, up to 7 neighbours)", flush=True)
+    for backend in ("pallas", "xla"):
+        alone, crowded = churn(False, backend), churn(True, backend)
+        if alone.size != 20 * cfg.hop or not np.array_equal(alone, crowded):
+            fail(f"churn ({backend}): a session's audio differs alone vs among churning neighbours")
+        print(f"[main] churn bit-identity ok on {backend} (20 hops, up to 7 neighbours)", flush=True)
+
+    # the utterance drivers: streaming == offline on the card, each vs the CPU port
+    amp = float(audio.std())
+    reset_counts()
+    ys = enhance_streaming(params, cfg, audio, device=dev).cpu().numpy()
+    launches_s = counts()
+    reset_counts()
+    yo = enhance_offline(params, cfg, audio, device=dev).cpu().numpy()
+    launches_o = counts()
+    n_hops = sr // cfg.hop
+    if launches_s != {**per_step("xla", False), "linear_attention": 2 * n_hops} or \
+            launches_o != {**per_step("xla", False), "linear_attention": 2}:
+        fail(f"enhance: launches streaming {launches_s}, offline {launches_o}")
+    if ys.shape != (8, n_hops * cfg.hop) or yo.shape != ys.shape or not np.isfinite(ys).all():
+        fail(f"enhance: shapes {ys.shape} {yo.shape} or non-finite values")
+    invariant = np.abs(ys / amp - yo / amp) <= 1e-5 + 1e-4 * np.abs(yo / amp)
+    enh = {"shape": list(ys.shape), "amp": amp, "streaming_vs_offline_ok": float(invariant.mean()),
+           "worst_gap_over_amp": float(np.abs(ys - yo).max() / amp),
+           "launches_streaming": launches_s, "launches_offline": launches_o}
+    for name, card, fn in (("streaming", ys, enhance_streaming), ("offline", yo, enhance_offline)):
+        close, res = held_to_cpu(card, fn(params, cfg, audio, device="cpu").numpy())
+        enh[f"{name}_vs_cpu"] = res
+        if close.mean() < 1.0:
+            fail(f"enhance_{name}: card vs CPU port within 1e-4 on only {close.mean():.5f} of samples")
+    report["main"]["enhance"] = enh
+    print(f"[main] enhance on the card: {json.dumps(enh)}", flush=True)
+    if invariant.mean() < 1.0:
+        fail("enhance: streaming != offline on the card (atol 1e-5, rtol 1e-4 on audio / amplitude)")
 
     # -- 5. times -------------------------------------------------------------
     def conv_group():
@@ -318,6 +428,26 @@ def run(report: dict) -> int:
                  for _ in range(cfg.num_transformer_blocks)]
     mm_inputs = [(rand(B * Fp, plan.params[n]["w"].shape[0]), plan.params[n])
                  for n in ("att_in", "att_out", "mask_conv1", "mask_conv2")]
+    fp10_inputs = [rand(B, Fr + 1, 2, scale=40.0), rand(B, Fr + 1, 2)]  # frame, mask
+    nc_inputs = [tuple(rand(B, H, Fp, hd) for _ in range(3)) for _ in range(cfg.num_transformer_blocks)]
+    nc_offline = tuple(rand(B * (sr // cfg.hop), H, Fp, hd) for _ in range(3))
+
+    def attention_work(groups):
+        nbytes = flops = 0.0
+        for q, _, _ in groups:
+            bh, L, D = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+            nbytes += 4 * 4 * q.numel()  # q, k, v read, out written
+            flops += 4 * bh * L * D * D + bh * L * D
+        return nbytes, flops
+
+    def two_calls(groups):
+        """The same function as two PyTorch calls: bmm(q, bmm(k^T, v)) / L."""
+        out = []
+        for q, k, v in groups:
+            bh, L, D = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
+            q3, k3, v3 = (t.reshape(bh, L, D) for t in (q, k, v))
+            out.append(torch.bmm(q3, torch.bmm(k3.mT, v3)) / L)
+        return out
 
     def work(name):
         """(bytes, flops) the kernel's launches in one hop step need on these inputs."""
@@ -328,6 +458,12 @@ def run(report: dict) -> int:
                 live = float((x.flatten(1) != 0).any(dim=1).sum())  # frames not skipped
                 nbytes += 4 * (2 * x.numel() + lp["w"].numel() + lp["b"].numel())
                 flops += 2 * live * x.shape[1] * half * half * k + 3 * x.shape[0] * x.shape[1] * half
+        elif name == "fp10_quantize":
+            for x in fp10_inputs:  # divide, round, multiply, 2 compares, sign per value
+                nbytes += 8 * x.numel()
+                flops += 6 * x.numel()
+        elif name == "linear_attention":
+            nbytes, flops = attention_work(nc_inputs)
         elif name == "linear_attention_step":
             for q, k, v, kv in la_inputs:
                 bh, L, D = q.shape[0] * q.shape[1], q.shape[2], q.shape[3]
@@ -357,69 +493,116 @@ def run(report: dict) -> int:
             lambda: [masked_matmul_ref(x, p["w"], p["b"]) for x, p in mm_inputs],
             lambda: [torch.addmm(p["b"], x, p["w"]) for x, p in mm_inputs],
         ),
+        # no single PyTorch call rounds onto a minifloat grid
+        "fp10_quantize": (
+            lambda: [fp10_quantize(x) for x in fp10_inputs],
+            lambda: [fp10_quantize_ref(x) for x in fp10_inputs],
+            None,
+        ),
+        # no single PyTorch call computes Q @ (K^T V) / L; two bmm calls below
+        "linear_attention": (
+            lambda: [linear_attention(*a) for a in nc_inputs],
+            lambda: [linear_attention_ref(*a) for a in nc_inputs],
+            None,
+        ),
     }
+
+    def kernel_plain_ms(kernel_fn, plain_fn):
+        """kernel, plain, kernel, plain: the faster of two rounds each."""
+        k1, p1, k2, p2 = (time_ms(f) for f in (kernel_fn, plain_fn, kernel_fn, plain_fn))
+        return min(k1, k2), min(p1, p2)
+
     rows = []
     for name, (kernel_fn, plain_fn, library_fn) in runs.items():
-        # kernel, plain, kernel, plain: take the faster of two rounds each
-        k_ms = min(time_ms(kernel_fn), time_ms(kernel_fn))
-        p_ms = min(time_ms(plain_fn), time_ms(plain_fn))
+        k_ms, p_ms = kernel_plain_ms(kernel_fn, plain_fn)
         lib_ms = time_ms(library_fn) if library_fn is not None else None
         nbytes, flops = work(name)
+        path = PATH_OF[name]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
-            "launches": main_launches[name], "max_abs_err": errs[name],
+            "launches": main_launches[path][name], "max_abs_err": errs[name],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms(nbytes, flops),
             "bound_by": bound_by(nbytes, flops), "library_ms": lib_ms,
-            "per": f"one hop step at capacity {B}: {PER_STEP[name]} launches",
+            "per": f"one hop step at capacity {B} ({path}): "
+                   f"{per_step(path.split('_')[0], path.endswith('fp10'))[name]} launches",
         })
+    la_row = rows[-1]
+    la_row["two_call_ms"] = time_ms(lambda: two_calls(nc_inputs))
+    k_ms, p_ms = kernel_plain_ms(lambda: linear_attention(*nc_offline),
+                                 lambda: linear_attention_ref(*nc_offline))
+    nbytes, flops = attention_work([nc_offline])
+    la_row["offline"] = {
+        "per": f"one block of enhance_offline over {B} x 1 s: 1 launch of {tuple(nc_offline[0].shape)}",
+        "ms": k_ms, "plain_ms": p_ms, "two_call_ms": time_ms(lambda: two_calls([nc_offline])),
+        "bound_ms": bound_ms(nbytes, flops), "bound_by": bound_by(nbytes, flops),
+    }
     report["kernels"] = rows
 
     pool_times = {}
     long_audio = np.tile(audio, (8, 1))
-    for cap in (8, 64):
-        pool = SessionPool(params, cfg, capacity=cap, device=dev)
-        sessions = [pool.attach() for _ in range(cap)]
-        for i, s in enumerate(sessions):
-            pool.feed(s, long_audio[i % len(long_audio)])
-        for _ in range(3):  # warm-up steps are not counted
-            pool.step()
-        pool.step_seconds.clear()
-        pool.pump()
-        pct = pool.latency_percentiles((50, 99))
-        pool_times[cap] = {"steps": len(pool.step_seconds), "p50_ms": pct[50], "p99_ms": pct[99],
-                           "budget_ms": HOP_BUDGET_MS}
+    for backend in ("pallas", "xla"):
+        for cap in (8, 64):
+            pool = SessionPool(params, cfg, capacity=cap, backend=backend, device=dev)
+            sessions = [pool.attach() for _ in range(cap)]
+            for i, s in enumerate(sessions):
+                pool.feed(s, long_audio[i % len(long_audio)])
+            for _ in range(3):  # warm-up steps are not counted
+                pool.step()
+            pool.step_seconds.clear()
+            pool.pump()
+            pct = pool.latency_percentiles((50, 99))
+            pool_times[f"{backend}_{cap}"] = {"steps": len(pool.step_seconds), "p50_ms": pct[50],
+                                              "p99_ms": pct[99], "budget_ms": HOP_BUDGET_MS}
     print(f"[times] pool per-hop step {json.dumps(pool_times)}", flush=True)
     report["pool"] = pool_times
 
-    # profiler window: device time by kernel over 10 steps at capacity 8
-    pool = SessionPool(params, cfg, capacity=8, device=dev)
-    sessions = [pool.attach() for _ in range(8)]
-    for i, s in enumerate(sessions):
-        pool.feed(s, audio[i])
-    for _ in range(3):
-        pool.step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    enh_times = {}
+    for name, fn in (("offline", enhance_offline), ("streaming", enhance_streaming)):
+        fn(params, cfg, audio, device=dev)  # warm-up
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(10):
-            pool.step()
+        fn(params, cfg, audio, device=dev)
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.device_time_total)[:12]
-    report["profile"] = {
-        "steps": 10, "wall_ms_per_step": wall * 1e2,
-        "device_ms_per_step": dev_us / 1e4 if dev_us else None,
-        "device_busy_share": (dev_us / 1e6) / wall if dev_us else None,
-        "top": [{"name": e.key[:80], "calls": e.count, "device_ms": e.device_time_total / 1e3} for e in top],
-    }
-    for row in rows:  # each kernel's device time per hop step, without host gaps
-        mine = [e for e in events if f"{row['name']}_kernel" in e.key]
-        row["device_ms"] = sum(e.device_time_total for e in mine) / 1e4 if mine else None
-    print(f"[profile] wall {wall * 1e2:.3f} ms/step, device "
-          f"{report['profile']['device_ms_per_step']} ms/step", flush=True)
+        enh_times[name] = {"seconds": wall, "audio_seconds": audio.size / sr,
+                           "seconds_per_audio_second": wall / (audio.size / sr)}
+    print(f"[times] enhance 8 x 1 s {json.dumps(enh_times)}", flush=True)
+    report["enhance_times"] = enh_times
+
+    # profiler windows: device time by kernel over 10 steps at capacity 8
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    report["profile"] = {}
+    for path, backend, quant in (("pallas_fp32", "pallas", None), ("xla_fp10", "xla", FP10)):
+        pool = SessionPool(params, cfg, capacity=8, quant=quant, backend=backend, device=dev)
+        sessions = [pool.attach() for _ in range(8)]
+        for i, s in enumerate(sessions):
+            pool.feed(s, audio[i])
+        for _ in range(3):
+            pool.step()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                pool.step()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.device_time_total for e in events)
+        top = sorted(events, key=lambda e: -e.device_time_total)[:12]
+        report["profile"][path] = {
+            "steps": 10, "wall_ms_per_step": wall * 1e2,
+            "device_ms_per_step": dev_us / 1e4 if dev_us else None,
+            "device_busy_share": (dev_us / 1e6) / wall if dev_us else None,
+            "device_launches_per_step": sum(e.count for e in events) / 10,
+            "top": [{"name": e.key[:80], "calls": e.count, "device_ms": e.device_time_total / 1e3}
+                    for e in top],
+        }
+        for row in rows:  # each kernel's device time per hop step, without host gaps
+            mine = [e for e in events if f"{row['name']}_kernel" in e.key]
+            if PATH_OF[row["name"]] == path:
+                row["device_ms"] = sum(e.device_time_total for e in mine) / 1e4 if mine else None
+        print(f"[profile {path}] wall {wall * 1e2:.3f} ms/step, device "
+              f"{report['profile'][path]['device_ms_per_step']} ms/step", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

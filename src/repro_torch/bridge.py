@@ -3,6 +3,7 @@
 - ``params_from_numpy(tree)``: a nested dict/list of numpy arrays (the
   reference's ``init_tft`` tree after ``np.asarray`` on every leaf) becomes
   the same nesting of float32 tensors.
+- ``tree_to(tree, device)``: a tree of tensors as float32 on ``device``.
 - ``load_checkpoint(directory)``: reads a reference ``Checkpointer``
   checkpoint (``step_<n>/arrays.npz`` whose keys are tree paths joined with
   ``"::"``, ``repro/train/checkpoint.py:29-37``) into such a tree.
@@ -29,6 +30,15 @@ def params_from_numpy(tree: Any, *, device=None) -> Any:
     if np.issubdtype(arr.dtype, np.floating):
         arr = arr.astype(np.float32)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """The same nesting with every tensor as float32 on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device=device, dtype=torch.float32)
 
 
 def _nest(flat: Dict[str, np.ndarray]) -> Any:

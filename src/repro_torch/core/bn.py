@@ -1,8 +1,10 @@
 """BatchNorm with constant inference statistics, and its folding.
 
-Counterpart of ``repro/core/bn.py`` for what the deploy path needs: the
-parameter layout, the per-channel affine of an inference-mode BN, and the
-exact folds into an adjacent linear layer or convolution.
+Counterpart of ``repro/core/bn.py`` for inference: the parameter layout,
+``BatchNorm.apply`` with the running statistics (the training graph's
+norm), the per-channel affine of an inference-mode BN, and the exact folds
+into an adjacent linear layer or convolution. Train mode (batch statistics
+and the running-stat update) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class BatchNorm:
-    """Feature-axis batch normalization (parameter layout only)."""
+    """Batch normalization over the last (feature) axis."""
 
     num_features: int
+    eps: float = 1e-5
 
     def init(self, dtype=torch.float32) -> Params:
         f = self.num_features
@@ -29,6 +32,22 @@ class BatchNorm:
             "mean": torch.zeros((f,), dtype=dtype),
             "var": torch.ones((f,), dtype=dtype),
         }
+
+    def apply(self, params: Params, x: torch.Tensor, *, train: bool = False
+              ) -> Tuple[torch.Tensor, Params]:
+        """Returns ``(y, params)``: x normalized with the running statistics.
+
+        Raises:
+            NotImplementedError: ``train=True`` (batch statistics are not
+                ported yet).
+        """
+        if train:
+            raise NotImplementedError("BatchNorm.apply: train=True is not ported yet")
+        inv = torch.rsqrt(params["var"] + self.eps) * params["scale"]
+        return (x - params["mean"]) * inv + params["bias"], params
+
+    def __call__(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return self.apply(params, x)[0]
 
 
 def bn_scale_shift(bn_params: Params, eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,10 +1,10 @@
 """Emulated quantization: minifloat (FP10 = 1-5-4) and fixed point.
 
-Counterpart of ``repro/core/quant.py``. Rounding is exactly on the grid:
-every step is an exact power of two built from its exponent bits, where
-the reference's ``jnp.exp2`` is inexact for some negative exponents on XLA
-CPU and so lands a few values off the grid (ROADMAP C1). The two agree
-everywhere else.
+Counterpart of ``repro/core/quant.py``. Minifloat rounding goes through
+``kernels.fp10`` (plain version on the CPU, CUDA kernel on the card) and
+is exactly on the grid, where the reference's ``jnp.exp2`` is inexact for
+some negative exponents on XLA CPU and so lands a few values off the grid
+(ROADMAP C1). The two agree everywhere else.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import dataclasses
 from typing import Any
 
 import torch
+
+from repro_torch.kernels.fp10 import fp10_quantize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,43 +43,15 @@ class QuantSpec:
 FP10 = QuantSpec("fp", 5, 4)  # the paper's deployment format
 
 
-def _exp2_exact(e: torch.Tensor) -> torch.Tensor:
-    """2**e for integer tensors e >= -252, exact (float32, subnormals included).
-
-    Built from IEEE exponent bits as the product of two normal powers of
-    two, so no transcendental function is involved on any device.
-    """
-    e = e.to(torch.int32)
-    e1 = e.clamp(-126, 127)
-    e2 = (e - e1).clamp(-126, 127)
-
-    def bits(n: torch.Tensor) -> torch.Tensor:
-        return ((n + 127) << 23).view(torch.float32)
-
-    return bits(e1) * bits(e2)
-
-
 def quantize_minifloat(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
     """Round x (f32) to the nearest minifloat value (RNE), saturating.
 
     IEEE-like grid: bias = 2^(e-1) - 1, subnormals at the bottom, no inf/nan
-    codes (saturate instead).
+    codes (saturate instead). CPU tensors take the plain version, CUDA
+    tensors the hand-written kernel (``kernels.fp10``); both round exactly
+    on the grid and agree bit for bit.
     """
-    x = x.float()
-    bias = 2 ** (exp_bits - 1) - 1
-    min_exp = 1 - bias
-    max_exp = 2**exp_bits - 2 - bias
-    max_val = (2.0 - 2.0**-man_bits) * 2.0**max_exp
-    sign = torch.sign(x)
-    mag = x.abs()
-    # floor(log2(mag)) exactly: frexp gives mag = m * 2**p with m in [0.5, 1)
-    _, p = torch.frexp(mag)
-    e = (p - 1).clamp(min_exp, max_exp)
-    step = _exp2_exact(e - man_bits)
-    q = torch.round(mag / step) * step  # torch.round is round-half-even
-    q = torch.clamp(q, max=max_val)
-    q = torch.where(mag == 0, torch.zeros_like(q), q)
-    return sign * q
+    return fp10_quantize(x, exp_bits, man_bits)
 
 
 def quantize_fixed(x: torch.Tensor, int_bits: int, frac_bits: int) -> torch.Tensor:

@@ -72,3 +72,17 @@ def check_launch(name: str, rc: int) -> None:
     """Raise if a kernel's C launcher returned a non-zero ``cudaError_t``."""
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+
+
+def strict_fp32(dev: torch.device) -> None:
+    """On CUDA, keep float32 in convolutions, matmuls and GRUs, with fixed
+    algorithms (process-wide ``torch.backends`` flags; nothing on the CPU).
+
+    TF32 would round products to ~3 decimal digits and break the 1e-4 hop
+    tolerance; deterministic cuDNN keeps a slot's audio independent of its
+    neighbours'.
+    """
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True

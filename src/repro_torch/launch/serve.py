@@ -1,9 +1,13 @@
 """Serving launcher for the port (counterpart of ``repro/launch/serve.py``).
 
 ``--task pool`` serves ``--batch`` concurrent sessions through one
-``SessionPool`` on the deployed hop, on the card unless ``--device cpu``::
+``SessionPool``, on the deployed hop (``--backend pallas``, the default) or
+the training graph's hop (``--backend xla``), on the card unless
+``--device cpu``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --task pool --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --task pool --reduced \
+        --batch 2 --samples 400 --device cpu --backend xla
 
 The weights are random (``init_tft`` from ``--seed``). The input is noisy
 audio made with numpy from ``--seed`` (a sine tone in white noise); the
@@ -44,7 +48,8 @@ def serve_pool(args) -> None:
         cfg = reduced_cfg(cfg)
     params = tft.init_tft(torch.Generator().manual_seed(args.seed), cfg)
     pool = SessionPool(params, cfg, capacity=max(args.batch, 1),
-                       quant=FP10 if args.quant else None, device=args.device)
+                       quant=FP10 if args.quant else None, backend=args.backend,
+                       device=args.device)
     audio = noisy_audio(args.batch, args.samples, args.seed, pool.sample_rate)
     sessions = [pool.attach() for _ in range(args.batch)]
     for i, s in enumerate(sessions):
@@ -70,6 +75,9 @@ def main(argv=None) -> None:
     ap.add_argument("--samples", type=int, default=16000, help="samples fed per session")
     ap.add_argument("--seed", type=int, default=0, help="seed for weights and audio")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--backend", choices=["pallas", "xla"], default="pallas",
+                    help="pallas: the deploy graph (BN folded, three kernels); "
+                    "xla: the training graph (FP10 and non-causal attention kernels)")
     args = ap.parse_args(argv)
     {"pool": serve_pool}[args.task](args)
 

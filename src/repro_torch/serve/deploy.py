@@ -31,13 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import nn
+from repro_torch.bridge import tree_to
 from repro_torch.core.bn import fold_bn_into_conv2d, fold_bn_into_linear
 from repro_torch.core.bn_transformer import fold_qk_bn
 from repro_torch.core.quant import QuantSpec, quantize, quantize_tree
 from repro_torch.kernels.dilated_conv import dilated_split_conv
 from repro_torch.kernels.linear_attention import linear_attention_step
 from repro_torch.kernels.masked_mac import masked_matmul
-from repro_torch.kernels.runtime import DeviceLike, resolve_device
+from repro_torch.kernels.runtime import DeviceLike, resolve_device, strict_fp32
 from repro_torch.models import tftnn as tft_mod
 from repro_torch.models.tftnn import _sub_cfg
 from repro_torch.serve.streaming_se import StreamState, hop_analysis, hop_synthesis
@@ -73,14 +74,6 @@ class DeployPlan:
     device: torch.device
     conv_w: Dict[str, torch.Tensor]
     sub_grus: Tuple[torch.nn.GRU, ...]
-
-
-def _tree_to(tree: Any, device: torch.device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device=device, dtype=torch.float32)
 
 
 def _squeeze_kt(w: torch.Tensor) -> torch.Tensor:
@@ -166,12 +159,8 @@ def build_deploy_plan(
             raise NotImplementedError(f"build_deploy_plan: {knob} (pruning) is not ported yet")
     validate_deployable(cfg)
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        # a slot's audio must not depend on its neighbours': fixed algorithms
-        torch.backends.cudnn.deterministic = True
-    params = _tree_to(params, dev)
+    strict_fp32(dev)
+    params = tree_to(params, dev)
     dp: Params = {
         "enc_in": _fold_conv(params["enc_in"], params["enc_in_norm"]),
         "enc_dilated": _fold_dilated(params["enc_dilated"]["layers"]),

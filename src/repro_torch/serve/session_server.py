@@ -8,10 +8,12 @@ session's audio depends only on its own history, whatever its neighbours
 do. Each session owns a ring buffer that takes chunks of any size;
 ``pump()`` drains whole hops across all sessions, one batched step each.
 
-This port serves the deploy graph (``backend="pallas"``, on the card the
-hand-written CUDA kernels) with one step in flight and one hop per session
-per step. The reference's other knobs (``inflight=2``, ``hops_per_step``,
-the ingestion ring, backpressure parking, pruning, durability, the finite
+This port serves either hop of ``make_stream_hop``: the deploy graph
+(``backend="pallas"``, the port's default) or the training graph
+(``backend="xla"``, the reference's default), each on its hand-written CUDA
+kernels on the card, with one step in flight and one hop per session per
+step. The reference's other knobs (``inflight=2``, ``hops_per_step``, the
+ingestion ring, backpressure parking, pruning, durability, the finite
 guard, fault injection, shared step caches) raise ``NotImplementedError``.
 """
 
@@ -131,15 +133,17 @@ class SessionPool:
         sample_rate: audio sample rate for RTF accounting (paper: 8 kHz).
         device: where the state lives and the step runs; ``cuda`` unless
             the caller passes ``"cpu"``.
-        backend, donate, prune_*, inflight, max_unread_hops, on_unparked,
+        backend: ``"pallas"`` (default; the deploy graph) or ``"xla"``
+            (the training graph), as in ``make_stream_hop``.
+        donate, prune_*, inflight, max_unread_hops, on_unparked,
         hops_per_step, step_fn, step_fns, ingest_ring, durability,
-        finite_guard, faults: the reference's knobs. Only their defaults
-        (``backend="pallas"``, ``donate=True``, ``inflight=1``,
-        ``hops_per_step=1``, the rest unset) are ported; anything else
-        raises ``NotImplementedError`` naming the knob.
+        finite_guard, faults: the reference's other knobs. Only their
+        defaults (``donate=True``, ``inflight=1``, ``hops_per_step=1``, the
+        rest unset) are ported; anything else raises
+        ``NotImplementedError`` naming the knob.
 
     Raises:
-        ValueError: ``capacity < 1``.
+        ValueError: ``capacity < 1``, or an unknown ``backend``.
         NotImplementedError: an unported knob was set.
         RuntimeError: the device is CUDA and CUDA is not available.
     """
@@ -173,7 +177,6 @@ class SessionPool:
             raise ValueError("capacity must be >= 1")
         unported = {
             "donate=False": not donate,
-            f"backend={backend!r}": backend != "pallas",
             "prune_keep": prune_keep is not None,
             "prune_axis": prune_axis is not None,
             "prune_granularity": prune_granularity is not None,
@@ -195,8 +198,9 @@ class SessionPool:
         self.capacity = capacity
         self.sample_rate = sample_rate
         self.quant = quant
+        self.backend = backend
         self.device = resolve_device(device)
-        self._step = make_stream_hop(params, cfg, quant=quant, device=self.device)
+        self._step = make_stream_hop(params, cfg, quant=quant, backend=backend, device=self.device)
         self._state: StreamState = init_stream(params, cfg, capacity, device=self.device)
         self._slot_session: List[Optional[Session]] = [None] * capacity
         self._sessions: Dict[int, Session] = {}
@@ -378,7 +382,7 @@ class SessionPool:
         hop = self.cfg.hop
         lines = [
             f"SessionPool(capacity={self.capacity}, active={self.num_active}, "
-            f"quant={self.quant or 'fp32'}, device={self.device})"
+            f"quant={self.quant or 'fp32'}, backend={self.backend}, device={self.device})"
         ]
         pct = self.latency_percentiles()
         budget_ms = hop / self.sample_rate * 1e3

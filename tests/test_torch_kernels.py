@@ -8,7 +8,9 @@ plain versions on the card by ``chip_smoke.py``.
 
 Tolerances are the reference's own: 2e-5 for the dilated conv
 (tests/test_kernel_properties.py:90), 1e-5 for linear attention and the
-masked matmul (tests/test_kernels.py, tests/test_deploy.py).
+masked matmul (tests/test_kernels.py, tests/test_deploy.py). FP10 rounding
+is compared value for value: equal, except where the reference's own result
+is off the FP10 grid (ROADMAP C1/C4), which is counted and bounded.
 """
 
 import jax.numpy as jnp
@@ -17,6 +19,10 @@ import pytest
 import torch
 
 from repro.kernels.dilated_conv import dilated_split_conv as j_dilated
+from repro.kernels.fp10.kernel import fp10_quantize_pallas as j_fp10_pallas
+from repro.kernels.fp10.ref import fp10_quantize_ref as j_fp10_ref
+from repro.kernels.linear_attention import linear_attention as j_la
+from repro.kernels.linear_attention.ref import linear_attention_ref as j_la_ref
 from repro.kernels.dilated_conv.ref import dilated_split_conv_ref as j_dilated_ref
 from repro.kernels.linear_attention import linear_attention_step as j_la_step
 from repro.kernels.linear_attention.ref import linear_attention_step_ref as j_la_step_ref
@@ -24,13 +30,14 @@ from repro.kernels.masked_mac import masked_matmul as j_masked
 from repro.kernels.masked_mac.ref import masked_matmul_ref as j_masked_ref
 from repro_torch.kernels import KERNELS
 from repro_torch.kernels.dilated_conv import dilated_split_conv, dilated_split_conv_ref
-from repro_torch.kernels.linear_attention import linear_attention_step
+from repro_torch.kernels.fp10 import fp10_quantize, fp10_quantize_ref
+from repro_torch.kernels.linear_attention import linear_attention, linear_attention_ref, linear_attention_step
 from repro_torch.kernels.masked_mac import masked_matmul
 from repro_torch.kernels.runtime import use_plain
 
 
 def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return torch.from_numpy(np.array(a, np.float32))
 
 
 def _conv_inputs(seed, B, F, C, k=5):
@@ -123,7 +130,95 @@ def test_cpu_path_launches_nothing():
     masked_matmul(_t(x[0]), _t(np.ones((4, 2))), _t(np.zeros(2)))
     z = torch.zeros((1, 1, 4, 2))
     linear_attention_step(z, z, z, torch.zeros((1, 1, 2, 2)))
+    linear_attention(z, z, z)
+    fp10_quantize(z)
     assert [k.launches for k in KERNELS] == before
+
+
+FP10_MAX = (2.0 - 2.0**-4) * 2.0**15  # 63488, the largest s1/e5/m4 value
+
+
+def _fp10_probes(seed):
+    """Values weighted toward tiny magnitudes, the subnormal grid and its
+    ties, exact powers of two, and the special values."""
+    rng = np.random.default_rng(seed)
+    sub = np.arange(0, 64) * 2.0**-18  # the subnormal grid (step 2**-18)
+    return np.concatenate([
+        rng.standard_normal(100_000) * 10.0 ** rng.integers(-8, 6, 100_000),
+        sub, sub + 2.0**-19, -(sub + 2.0**-19),  # every grid point and every tie
+        np.ldexp(1.0, np.arange(-26, 17)),
+        [0.0, -0.0, 2.0**-19, 3 * 2.0**-19, FP10_MAX, 64000.0, 1e6, -1e6,
+         np.inf, -np.inf, np.nan, -np.nan],
+    ]).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fp10_matches_pallas_and_ref(seed):
+    """The plain version rounds exactly onto the grid and equals the
+    reference's Pallas kernel (interpret mode) and ``ref.py`` except where
+    the reference's own result is off the grid or at the 2**-19 tie, which
+    the reference rounds up and round-half-even rounds to 0 (ROADMAP C1).
+    Those are counted; each gap is at most one grid step of the value's
+    binade. (On random values the worst gap is 3.81e-6, rule C4; at exact
+    ties in the binades where ``jnp.exp2`` is inexact the reference rounds
+    the tie the other way, a whole step, e.g. 2**-17 at 33 * 2**-18.)"""
+    probes = _fp10_probes(seed)
+    ours = fp10_quantize(_t(probes)).numpy()
+    assert np.array_equal(fp10_quantize_ref(_t(probes)).numpy(), ours, equal_nan=True)
+    on_grid = lambda a: np.isnan(a) | (fp10_quantize(_t(a)).numpy() == a)  # noqa: E731
+    assert on_grid(ours).all()
+    finite = np.isfinite(probes)
+    for ref in (np.asarray(j_fp10_pallas(jnp.asarray(probes), interpret=True)),
+                np.asarray(j_fp10_ref(jnp.asarray(probes)))):
+        listed = ~on_grid(ref) | (np.abs(probes) == 2.0**-19)
+        differ = finite & (ours != ref)
+        assert not (differ & ~listed).any(), probes[differ & ~listed][:10]
+        gap = np.abs(ours - ref)[finite]
+        step = np.ldexp(1.0, np.maximum(np.frexp(np.abs(probes[finite]))[1] - 1, -14) - 4)
+        print(f"FP10: {int(differ.sum())} of {probes.size} differ, all off the reference's grid; "
+              f"worst gap {float(gap.max()):.3g}")
+        assert (gap <= step).all(), probes[finite][gap > step][:10]
+        # the special values: NaN stays NaN, +-inf saturate, +-0 give 0, the
+        # grid's top saturates, all as the reference gives them
+        special = ~finite | (probes == 0) | (np.abs(probes) >= FP10_MAX)
+        np.testing.assert_array_equal(ours[special], ref[special])
+    assert np.isnan(ours[np.isnan(probes)]).all()
+    np.testing.assert_array_equal(ours[np.isinf(probes)], np.sign(probes[np.isinf(probes)]) * FP10_MAX)
+
+
+def test_fp10_shapes_and_grid_checks():
+    x = _t(np.random.default_rng(3).standard_normal((8, 257, 2)) * 40)
+    out = fp10_quantize(x)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert fp10_quantize(torch.zeros((0, 3))).shape == (0, 3)
+    torch.testing.assert_close(fp10_quantize(x.double()), out, atol=0.0, rtol=0.0)
+    with pytest.raises(TypeError):
+        fp10_quantize(torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="float32"):
+        fp10_quantize(x, exp_bits=9, man_bits=4)
+
+
+@pytest.mark.parametrize("L", [128, 37, 200, 1])
+def test_linear_attention_matches_pallas_and_ref(L):
+    """Non-causal Q @ (K^T V) / L; the reference's Pallas wrapper pads L to
+    a block multiple and renormalizes, the port's kernel takes any L."""
+    rng = np.random.default_rng(100 + L)
+    q, k, v = (rng.standard_normal((2, 2, L, 8)).astype(np.float32) for _ in range(3))
+    out = linear_attention(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_array_equal(out, linear_attention_ref(_t(q), _t(k), _t(v)).numpy())
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for ref in (j_la(jq, jk, jv, block_l=64, use_pallas=True), j_la_ref(jq, jk, jv)):
+        np.testing.assert_allclose(out, np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_linear_attention_validates_inputs():
+    z = torch.zeros((1, 2, 4, 8))
+    with pytest.raises(ValueError, match="L = 0"):
+        linear_attention(*(torch.zeros((1, 2, 0, 8)),) * 3)
+    with pytest.raises(ValueError):
+        linear_attention(z, z, torch.zeros((1, 2, 5, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_attention(z.transpose(2, 3), z.transpose(2, 3), z.transpose(2, 3))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape"])

@@ -112,7 +112,15 @@ def test_default_device_raises_without_cuda(setup, monkeypatch):
     ("max_unread_hops", 4), ("prune_keep", 0.5), ("finite_guard", True), ("donate", False),
 ])
 def test_unported_knobs_raise(setup, knob, value):
+    """Every knob not ported raises ``NotImplementedError`` naming it. The
+    ``"xla"`` backend is ported (tests/test_torch_xla.py): it builds, and
+    only a backend the reference does not know is refused."""
     _, _, cfg, params = setup
+    if (knob, value) == ("backend", "xla"):
+        assert SessionPool(params, cfg, capacity=2, device="cpu", backend="xla").backend == "xla"
+        with pytest.raises(ValueError, match="backend"):
+            SessionPool(params, cfg, capacity=2, device="cpu", backend="tpu")
+        return
     with pytest.raises(NotImplementedError, match=knob):
         SessionPool(params, cfg, capacity=2, device="cpu", **{knob: value})
 
@@ -122,6 +130,15 @@ def test_launcher_serves_on_cpu(capsys):
                  "--device", "cpu"])
     out = capsys.readouterr().out
     assert "SessionPool(capacity=2, active=2" in out and "3 hops" in out
+    assert "backend=pallas" in out
+
+
+def test_launcher_serves_xla_backend_on_cpu(capsys):
+    launch_main(["--task", "pool", "--reduced", "--batch", "2", "--samples", "400",
+                 "--device", "cpu", "--backend", "xla", "--quant"])
+    out = capsys.readouterr().out
+    assert "SessionPool(capacity=2, active=2" in out and "3 hops" in out
+    assert "backend=xla" in out
 
 
 def test_init_tft_is_reproducible_from_seed():
